@@ -76,8 +76,8 @@ def scipy_reference_seconds(stack, exposures, mean_icrf, pca, maxiter=1000):
 
 def main():
     import jax.numpy as jnp
-    from camera_linearity_tpu import CameraConfig
-    from camera_linearity_tpu.models import calibration as cal
+    from camera_linearity import CameraConfig
+    from camera_linearity.models import calibration as cal
 
     stacks, exposures, mean_icrf, pca = build_problem()
     cfg = CameraConfig(num_of_chs=3, datapoints=256)

@@ -29,8 +29,8 @@ sys.path.insert(0, str(Path(__file__).parent.parent))
 
 def run(frames: int = 60) -> dict:
     import cv2 as cv
-    from camera_linearity_tpu import native
-    from camera_linearity_tpu.utils import avi
+    from camera_linearity import native
+    from camera_linearity.utils import avi
     from bench_video import make_videos
 
     paths = make_videos(100, 2160, 3840, (5, 10, 20))

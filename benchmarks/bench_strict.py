@@ -1,4 +1,4 @@
-"""Strict / hybrid solver wall-clock at production scale (round-5).
+"""Strict / hybrid solver wall-clock at production scale.
 
 The strict solver (models/scipy_strict.py) is the reference's SciPy
 solve reproduced to the RNG draw in host float64 — including the
@@ -9,10 +9,9 @@ P=2000 pixels, N=6 exposures, 3 channels — the reference's
 data_spacing=150 ballpark) was asserted but never measured; this script
 records it next to the hybrid (device solve seeding a short strict
 polish) and the pure device solve, so the "audit-grade at a fraction of
-a cold strict solve's budget" claim carries numbers
-(benchmarks/RESULTS.md "Round 5").
+a cold strict solve's budget" claim carries numbers.
 
-Prints one JSON line per solver.  The device/hybrid legs need the chip;
+Prints one JSON line per solver.  The device/hybrid legs need the GPU;
 pass --host-only to record just the cold strict solve (pure CPU).
 """
 import argparse
@@ -24,17 +23,19 @@ from pathlib import Path
 
 import numpy as np
 
-sys.path.insert(0, str(Path(__file__).parent.parent))
-sys.path.insert(0, str(Path(__file__).parent))
+REPO = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(REPO))
+sys.path.insert(0, str(REPO / "benchmarks"))
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jax_cache")
+# JAX_COMPILATION_CACHE_DIR when set, else one fixed in-checkout directory
+os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", str(REPO / ".jax_cache"))
 os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "1")
 
 
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--host-only", action="store_true",
-                    help="skip the device and hybrid legs (no chip)")
+                    help="skip the device and hybrid legs (no GPU)")
     ap.add_argument("--strict-maxiter", type=int, default=1000,
                     help="cold strict budget (counted iterations; each "
                          "advances TWO generations, the reference's "
@@ -42,8 +43,8 @@ def main():
     args = ap.parse_args()
 
     from bench_calibration import build_problem
-    from camera_linearity_tpu import CameraConfig
-    from camera_linearity_tpu.models import scipy_strict
+    from camera_linearity import CameraConfig
+    from camera_linearity.models import scipy_strict
 
     stacks, exposures, mean_icrf, pca = build_problem()
     cfg = CameraConfig(num_of_chs=3, datapoints=256)
@@ -68,7 +69,7 @@ def main():
         return
 
     import jax.numpy as jnp
-    from camera_linearity_tpu.models import calibration as cal
+    from camera_linearity.models import calibration as cal
 
     def device_solve():
         return cal.calibration(

@@ -28,7 +28,7 @@ sys.path.insert(0, str(Path(__file__).parent.parent))
 def device_scan_rates(height, width, batch=32, iters=8):
     import jax
     import jax.numpy as jnp
-    from camera_linearity_tpu.ops import welford as wf
+    from camera_linearity.ops import welford as wf
 
     rng = np.random.default_rng(0)
     frames = rng.integers(0, 256, (batch, height, width, 3), np.uint8)
@@ -59,7 +59,7 @@ def device_scan_rates(height, width, batch=32, iters=8):
 
 
 def e2e_rates(frames, height, width):
-    from camera_linearity_tpu.models import video as video_mod
+    from camera_linearity.models import video as video_mod
     from bench_video import make_videos
 
     path = make_videos(frames, height, width, (10,))[0]

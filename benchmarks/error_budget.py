@@ -1,9 +1,8 @@
 """Measured f32 error budget per BASELINE config (SURVEY §7 hard-part (e)).
 
-For each of BASELINE.json's five configs this script runs the hot kernels
-in float32 on the active backend (the real TPU when attached, the CPU
-backend otherwise) and compares against the SAME ops executed in float64
-on a CPU subprocess.  The CPU-f64 path's agreement with the reference
+For each of BASELINE.json's five configs this script runs the hot paths
+in float32 on the default backend (the GPU, where one is present) and
+compares against the SAME ops executed in float64 on a CPU subprocess.  The CPU-f64 path's agreement with the reference
 semantics is pinned separately by the test suite's NumPy oracles
 (tests/unit/test_hdr_merge.py, test_linearity.py, test_video.py), so the
 deviation measured here is exactly the f32-vs-f64 budget of the
@@ -35,8 +34,9 @@ Methodology notes:
 
 Usage:  python benchmarks/error_budget.py            # f32 on default backend
         python benchmarks/error_budget.py --oracle F # (internal) f64 child
-Writes benchmarks/error_budget.json and prints the markdown table for
-docs/kernel_design.md.
+Prints the markdown table for docs/kernel_design.md (``--json PATH`` also
+writes the rows).  The float64 child pins the CPU platform before its
+backend starts, so it never opens the GPU.
 """
 from __future__ import annotations
 
@@ -97,11 +97,8 @@ def _inputs():
         exposures=f32(0.001 * 2.0 ** np.arange(6)),
         icrf=icrf2, icrf_diff=diff2)
     # config 3: corrections-fused merge on 12-bit stacks (dark bad-pixel
-    # prologue + flat-field epilogue, 4096-entry tables)
-    # the >8-bit contract (models/calibration.py return_base): the full
-    # 4096-entry table is the EXACT np.interp expansion of the solved
-    # 256-point base curve — construct it that way, or the TPU lerp
-    # kernel and the oracle's exact gather compute different functions
+    # prologue + flat-field epilogue, 4096-entry tables built as the
+    # reference builds them: np.interp expansions of a 256-point curve)
     base3, diffb3 = icrf_pair(256, 3)
     xs_full = np.arange(4096) / 4095.0
     xs_base = np.arange(256) / 255.0
@@ -121,7 +118,7 @@ def _inputs():
         stack_std=f32(rng.uniform(0.001, 0.02, (n3, h3, w3, 3))),
         dark_stack=dark,
         exposures=f32([0.002, 0.004, 0.008, 0.016]),
-        icrf=icrf3, icrf_diff=diff3, icrf_base=base3, icrf_diff_base=diffb3,
+        icrf=icrf3, icrf_diff=diff3,
         flat_val=f32(rng.uniform(0.7, 1.0, (h3, w3, 3))),
         flat_std=f32(rng.uniform(0.001, 0.01, (h3, w3, 3))))
     # config 4: calibration population energies, all three formulations
@@ -167,22 +164,22 @@ def _inputs():
 def _compute(inp, ftype):
     import jax
     import jax.numpy as jnp
-    from camera_linearity_tpu.ops import hdr, linearity as lin, welford as wf
-    from camera_linearity_tpu.models import calibration as cal
+    from camera_linearity.ops import hdr, linearity as lin, welford as wf
+    from camera_linearity.models import calibration as cal
 
     cast = lambda a: jnp.asarray(np.asarray(a, np.float64), ftype)  # noqa
     out = {}
 
     c1 = inp["config1"]
-    v, _ = hdr.merge_stack_u8(jnp.asarray(c1["stack_dn"]), None,
-                              cast(c1["exposures"]), cast(c1["icrf"]),
-                              cast(c1["icrf_diff"]))
+    v, _ = hdr.merge_hdr(jnp.asarray(c1["stack_dn"]), None,
+                         cast(c1["exposures"]), cast(c1["icrf"]),
+                         cast(c1["icrf_diff"]))
     out["config1.val"] = np.asarray(v, np.float64)
 
     c2 = inp["config2"]
-    v, s = hdr.merge_stack(cast(c2["stack_val"]), cast(c2["stack_std"]),
-                           cast(c2["exposures"]), cast(c2["icrf"]),
-                           cast(c2["icrf_diff"]))
+    v, s = hdr.merge_hdr(cast(c2["stack_val"]), cast(c2["stack_std"]),
+                         cast(c2["exposures"]), cast(c2["icrf"]),
+                         cast(c2["icrf_diff"]))
     out["config2.val"] = np.asarray(v, np.float64)
     out["config2.std"] = np.asarray(s, np.float64)
 
@@ -191,9 +188,7 @@ def _compute(inp, ftype):
         cast(c3["stack_val"]), cast(c3["stack_std"]),
         cast(c3["dark_stack"]), cast(c3["exposures"]), cast(c3["icrf"]),
         cast(c3["icrf_diff"]), jnp.asarray(0.05, ftype),
-        flat_val=cast(c3["flat_val"]), flat_std=cast(c3["flat_std"]),
-        icrf_base=cast(c3["icrf_base"]),
-        icrf_diff_base=cast(c3["icrf_diff_base"]))
+        flat_val=cast(c3["flat_val"]), flat_std=cast(c3["flat_std"]))
     out["config3.val"] = np.asarray(v, np.float64)
     out["config3.std"] = np.asarray(s, np.float64)
 
@@ -253,7 +248,7 @@ def _run_oracle(npz_path: str) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--oracle", help="(internal) write f64 outputs here")
-    ap.add_argument("--json", default=str(HERE / "error_budget.json"))
+    ap.add_argument("--json", help="also write the rows here")
     args = ap.parse_args()
     if args.oracle:
         _run_oracle(args.oracle)
@@ -261,7 +256,7 @@ def main() -> int:
 
     with tempfile.TemporaryDirectory() as td:
         oracle_npz = os.path.join(td, "oracle.npz")
-        env = dict(os.environ,
+        env = dict(os.environ, JAX_PLATFORMS="cpu",
                    PYTHONPATH=str(REPO) + os.pathsep
                    + os.environ.get("PYTHONPATH", ""))
         env.pop("XLA_FLAGS", None)
@@ -285,9 +280,12 @@ def main() -> int:
         rows.append({"output": key, "max_abs": absdev, "max_rel": reldev,
                      "out_scale": float(np.max(np.abs(b)))})
 
-    result = {"backend": backend, "rows": rows}
-    Path(args.json).write_text(json.dumps(result, indent=2))
-    print(f"backend: {backend}")
+    dev = jax.devices()[0]
+    result = {"backend": backend, "device_kind": dev.device_kind,
+              "rows": rows}
+    if args.json:
+        Path(args.json).write_text(json.dumps(result, indent=2))
+    print(f"backend: {backend} ({dev.device_kind})")
     print("| output | max abs dev | max rel dev (|y|>1e-3·max) |")
     print("|---|---|---|")
     for r in rows:

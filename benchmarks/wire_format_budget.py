@@ -23,7 +23,7 @@ sys.path.insert(0, str(Path(__file__).parent.parent))
 
 def main():
     import jax.numpy as jnp
-    from camera_linearity_tpu.ops import hdr
+    from camera_linearity.ops import hdr
 
     rng = np.random.default_rng(0)
     n, h, w, c = 3, 256, 256, 3

@@ -1,8 +1,8 @@
-"""Multi-host batch video->HDR walkthrough (BASELINE config 5 at scale).
+"""Multi-process batch video->HDR walkthrough (BASELINE config 5 at scale).
 
-Demonstrates the multi-host flow of ``parallel.distributed``: every
+Demonstrates the multi-process flow of ``parallel.distributed``: every
 process runs THIS SAME script; the scene batch shards as contiguous
-blocks over the mesh's ``data`` (DCN) axis, each process decodes only its
+blocks over the mesh's ``data`` (process) axis, each process decodes only its
 own block host-locally, the merge executes as one globally-sharded
 computation with zero cross-scene communication, and each process gets
 its own scenes' HDR results back.
@@ -22,11 +22,12 @@ Run it three ways:
        CL_COORDINATOR_ADDRESS=localhost:9911 CL_NUM_PROCESSES=2 \
        CL_PROCESS_ID=1 python examples/distributed_batch.py /tmp/dist_demo
 
-3. A real TPU pod: launch one process per host with the same CL_* env
-   (or let ``jax.distributed.initialize()`` auto-detect on Cloud TPU by
-   exporting only CL_COORDINATOR_ADDRESS on multi-slice setups).
+3. Several GPU hosts: launch one process per host with the same
+   CL_COORDINATOR_ADDRESS / CL_NUM_PROCESSES and its own CL_PROCESS_ID
+   (nothing discovers the cluster on its own).  The GPUs of ONE host need
+   no processes at all: one process drives them all.
 
-The CLI equivalent is ``python -m camera_linearity_tpu ...
+The CLI equivalent is ``python -m camera_linearity ...
 --coordinator HOST:PORT --num-processes N --process-id I``.
 """
 import os
@@ -71,19 +72,18 @@ def main() -> int:
     # 1. Join the multi-process runtime BEFORE any other jax call.  With
     #    no CL_* env this is a no-op and the script runs single-process.
     #    The localhost demo must ALSO pin the CPU backend before joining —
-    #    local TPU plugins otherwise own the devices and the two CPU
-    #    processes cannot form one runtime.  On a real pod, drop this
-    #    (each host's TPU devices ARE the point).
+    #    a local GPU would otherwise be opened by both processes.  On
+    #    several GPU hosts, drop this (each host's GPUs ARE the point).
     if os.environ.get("CL_NUM_PROCESSES"):
         import jax
         jax.config.update("jax_platforms", "cpu")
-    from camera_linearity_tpu.parallel import distributed as dist
+    from camera_linearity.parallel import distributed as dist
     multi = dist.initialize()
 
     import jax
     import jax.numpy as jnp
-    from camera_linearity_tpu import CameraConfig
-    from camera_linearity_tpu.models import pipeline
+    from camera_linearity import CameraConfig
+    from camera_linearity.models import pipeline
 
     pid, nproc = jax.process_index(), jax.process_count()
     print(f"[{pid}] joined: {nproc} process(es), "

@@ -1,6 +1,6 @@
 """End-to-end walkthrough: synthetic captures -> calibration -> HDR.
 
-Runs everywhere (CPU or TPU; auto-detected).  Generates a synthetic
+Runs everywhere (CPU or GPU; auto-detected).  Generates a synthetic
 exposure series of a gamma-encoded scene, solves the inverse camera
 response function with the device-resident differential-evolution
 solver, merges the series into an uncertainty-tracked HDR radiance map
@@ -18,11 +18,11 @@ sys.path.insert(0, str(Path(__file__).parent.parent))
 import numpy as np
 import jax.numpy as jnp
 
-from camera_linearity_tpu import CameraConfig
-from camera_linearity_tpu.models import calibration as cal
-from camera_linearity_tpu.models.exposure_series import ExposureSeries
-from camera_linearity_tpu.models.image_set import ImageSet
-from camera_linearity_tpu.ops.linearize import icrf_derivative
+from camera_linearity import CameraConfig
+from camera_linearity.models import calibration as cal
+from camera_linearity.models.exposure_series import ExposureSeries
+from camera_linearity.models.image_set import ImageSet
+from camera_linearity.ops.linearize import icrf_derivative
 
 
 def make_captures(outdir: Path, gamma: float = 2.2, size: int = 64,

@@ -1,6 +1,6 @@
 """Video statistics walkthrough: Welford stacking -> noise model -> HDR.
 
-Runs everywhere (CPU or TPU).  Generates short synthetic exposure videos
+Runs everywhere (CPU or GPU).  Generates short synthetic exposure videos
 of a static noisy scene, computes exact mean/uncertainty frames with the
 streaming Welford/host-moments machinery, builds the sensor noise model
 (per-DN std LUT via noise-profile histograms — the reference's
@@ -49,7 +49,7 @@ def make_videos(outdir: Path, exposures_ms=(4, 8, 16), frames: int = 40,
 def main():
     outdir = Path(sys.argv[1]) if len(sys.argv) > 1 \
         else Path("/tmp/clt_video_demo")
-    from camera_linearity_tpu.models import pipeline, video as video_mod
+    from camera_linearity.models import pipeline, video as video_mod
 
     paths = make_videos(outdir)
 

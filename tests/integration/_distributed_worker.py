@@ -28,7 +28,7 @@ from jax.sharding import NamedSharding, PartitionSpec as P  # noqa: E402
 
 def main() -> None:
     scenes_dir, out_dir = Path(sys.argv[1]), Path(sys.argv[2])
-    from camera_linearity_tpu.parallel import distributed as dist
+    from camera_linearity.parallel import distributed as dist
 
     assert dist.initialize(), "env wiring should yield a multi-process run"
     pid, nproc = jax.process_index(), jax.process_count()
@@ -38,15 +38,15 @@ def main() -> None:
 
     mesh = dist.scene_mesh()
     assert dict(mesh.shape) == {"data": 2, "pixel": 4}, dict(mesh.shape)
-    # the data axis must be the PROCESS (DCN) axis: each mesh row's
+    # the data axis must be the PROCESS axis: each mesh row's
     # devices belong to one process
     rows = np.asarray(mesh.devices)
     assert all(len({d.process_index for d in row}) == 1 for row in rows)
 
     # --- distributed batch video->HDR (BASELINE config 5 shape) --------
-    from camera_linearity_tpu import CameraConfig
-    from camera_linearity_tpu.models import pipeline
-    from camera_linearity_tpu.ops import hdr as hdr_ops
+    from camera_linearity import CameraConfig
+    from camera_linearity.models import pipeline
+    from camera_linearity.ops import hdr as hdr_ops
 
     cfg = CameraConfig()
     scene_names = sorted(p.name for p in scenes_dir.iterdir()
@@ -81,7 +81,7 @@ def main() -> None:
                       float(jnp.max(jnp.abs(m.std - os_[0]))))
     assert max_err < 1e-9, f"distributed merge diverges: {max_err}"
 
-    # --- an explicit DCN collective: psum across the data axis ---------
+    # --- an explicit cross-process collective: psum over the data axis -
     from functools import partial
 
     @partial(jax.shard_map, mesh=mesh, in_specs=P("data"), out_specs=P())
@@ -94,7 +94,7 @@ def main() -> None:
     assert total == 4 * 1.0 + 4 * 2.0, total
 
     # --- population-sharded DE calibration over the global mesh --------
-    from camera_linearity_tpu.models import calibration as cal
+    from camera_linearity.models import calibration as cal
     pop_mesh = jax.make_mesh((8,), ("pop",),
                              axis_types=(jax.sharding.AxisType.Auto,))
     n_exp, pixels = 4, 48

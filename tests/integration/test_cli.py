@@ -1,14 +1,14 @@
 """End-to-end CLI tests: synthetic captures -> merge / linearity /
-calibrate / dorf through `python -m camera_linearity_tpu`."""
+calibrate / dorf through `python -m camera_linearity`."""
 from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from camera_linearity_tpu import CameraConfig, Measurand
-from camera_linearity_tpu.__main__ import main
-from camera_linearity_tpu.models.image_set import ImageSet
+from camera_linearity import CameraConfig, Measurand
+from camera_linearity.__main__ import main
+from camera_linearity.models.image_set import ImageSet
 
 
 @pytest.fixture
@@ -97,11 +97,9 @@ def test_cli_calibrate(tmp_path, rng):
     solved = np.loadtxt(out_file)
     assert solved.shape == (256, 3)
     assert np.all(np.diff(solved, axis=0) >= -1e-9)
-    # the datapoints-resolution base curve rides along for the merge's
-    # piecewise-linear fast path
-    base = np.loadtxt(tmp_path / "icrf_solved_base.txt")
-    assert base.shape == (256, 3)
-    np.testing.assert_allclose(base[0], 0.0, atol=1e-12)
+    # endpoint renormalization (reference ICRF_calibration_exposure.py:388-396)
+    np.testing.assert_allclose(solved[0], 0.0, atol=1e-12)
+    np.testing.assert_allclose(solved[-1], 1.0, atol=1e-12)
 
 
 def test_cli_calibrate_strict(tmp_path, rng):

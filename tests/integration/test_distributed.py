@@ -2,8 +2,8 @@
 
 SURVEY §5 "Distributed communication backend": the reference's only
 cross-worker parallelism is joblib channel processes (reference
-ICRF_calibration_exposure.py:383-386); the TPU build commits to
-``jax.distributed.initialize`` + DCN sharding for the batch-of-scenes
+ICRF_calibration_exposure.py:383-386); this build commits to
+``jax.distributed.initialize`` + process sharding for the batch-of-scenes
 axis.  This test launches two subprocess workers
 (tests/integration/_distributed_worker.py) that join one jax runtime
 (Gloo collectives), decode disjoint scene blocks host-locally, merge them

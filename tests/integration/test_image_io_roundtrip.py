@@ -7,8 +7,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from camera_linearity_tpu import CameraConfig
-from camera_linearity_tpu.models.image_set import ImageSet
+from camera_linearity import CameraConfig
+from camera_linearity.models.image_set import ImageSet
 
 
 @pytest.fixture
@@ -70,7 +70,7 @@ def test_calibrate_dark_frames(rng, tmp_path):
         s = ImageSet(src / f"{ms}ms dark.tif",
                      value=jnp.asarray(base + extra))
         s.save_8bit(src / f"{ms}ms dark.tif")
-    from camera_linearity_tpu.models.image_set import calibrate_dark_frames
+    from camera_linearity.models.image_set import calibrate_dark_frames
     out = calibrate_dark_frames(cfg, in_path=src, out_path=dst)
     assert len(out) == 2
     produced = {p.name for p in dst.glob("*.tif")}

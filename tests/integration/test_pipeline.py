@@ -5,8 +5,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from camera_linearity_tpu import CameraConfig
-from camera_linearity_tpu.models import pipeline
+from camera_linearity import CameraConfig
+from camera_linearity.models import pipeline
 
 
 def _write_video(path, frames_u8, fps=10):
@@ -172,8 +172,8 @@ def test_batch_video_to_hdr_wire_val_u16(scene_videos):
     paths, _ = scene_videos
     icrf = np.linspace(0, 1, 256)[:, None].repeat(3, 1)
     scenes = {"a": paths}
-    from camera_linearity_tpu.ops import hdr as hdr_ops
-    from camera_linearity_tpu.ops.linearize import icrf_derivative
+    from camera_linearity.ops import hdr as hdr_ops
+    from camera_linearity.ops.linearize import icrf_derivative
     full = pipeline.batch_video_to_hdr(scenes, jnp.asarray(icrf),
                                        wire_std="f32")["a"]
     wire = pipeline.batch_video_to_hdr(scenes, jnp.asarray(icrf),
@@ -215,7 +215,7 @@ def test_batch_video_to_hdr_calibration_leg(scene_videos):
     decoded stacks and drives the merge (a gamma-distorted scene merged
     with the SOLVED curve must differ from the identity-ICRF merge, and
     the leg's stage time must be attributed)."""
-    from camera_linearity_tpu.utils import observability as obs
+    from camera_linearity.utils import observability as obs
     paths, _ = scene_videos
     x = np.linspace(0, 1, 256)
     curves = np.stack([x ** g for g in np.linspace(1.6, 3.0, 25)])
@@ -242,7 +242,7 @@ def test_batch_video_to_hdr_distributed_calibration_leg(scene_videos):
     same merge as the single-host leg on a 1-process mesh, and the
     decoder/calibrate arguments must survive the process_count()>1
     dispatch in batch_video_to_hdr (they were silently dropped once)."""
-    from camera_linearity_tpu.parallel import distributed as dist
+    from camera_linearity.parallel import distributed as dist
     paths, _ = scene_videos
     x = np.linspace(0, 1, 256)
     curves = np.stack([x ** g for g in np.linspace(1.6, 3.0, 25)])

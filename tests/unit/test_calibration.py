@@ -1,12 +1,12 @@
-"""Tests for the TPU-resident differential-evolution ICRF calibration."""
+"""Tests for the device-resident differential-evolution ICRF calibration."""
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from camera_linearity_tpu import CameraConfig
-from camera_linearity_tpu.models import calibration as cal
-from camera_linearity_tpu.models.icrf import icrf_from_params
+from camera_linearity import CameraConfig
+from camera_linearity.models import calibration as cal
+from camera_linearity.models.icrf import icrf_from_params
 
 
 def test_de_solves_sphere():
@@ -38,7 +38,7 @@ def test_de_respects_bounds_and_x0():
 def test_de_batched_cache_key_avoids_retrace():
     """A second ad-hoc solve with a FRESH closure but the same cache_key
     must reuse the compiled solver: the new closure is never traced (never
-    even called), and the result is identical (VERDICT r3 item 5)."""
+    even called), and the result is identical."""
     calls = {"a": 0, "b": 0}
 
     def make_energy(tag):
@@ -124,9 +124,9 @@ def test_calibration_recovers_gamma_curve(rng):
     assert e1[0] < e0[0]
     # quantization floors the energy near 0.017 on this synthetic problem
     assert e1[0] < 0.03
-    # recovered curve close to the generating gamma curve (the f32
-    # accelerator trajectory legitimately lands a slightly different
-    # basin member than the f64 CPU solve: measured 0.051 on-chip)
+    # recovered curve close to the generating gamma curve (the f32 device
+    # trajectory legitimately lands a slightly different basin member
+    # than the f64 CPU solve)
     err = np.max(np.abs(icrf[:, 0] - truth))
     assert err < (0.05 if jax.config.jax_enable_x64 else 0.065)
     # monotone and pinned
@@ -138,7 +138,7 @@ def test_calibration_energy_forms_agree(rng):
     """Pinning energy_form selects each objective formulation explicitly;
     all three must produce the same seeded solve (identical trial
     trajectory -> near-identical energies), and invalid combinations
-    raise (VERDICT r3 item 8)."""
+    raise."""
     stack_dn, exposures, mean_icrf, pca, _ = _synthetic_problem(rng)
     cfg = CameraConfig(num_of_chs=1, datapoints=256)
     kw = dict(channel_stacks=(jnp.asarray(stack_dn[None]), None,
@@ -149,8 +149,8 @@ def test_calibration_energy_forms_agree(rng):
     res = {form: cal.calibration(-1.0, 1.0, **kw, energy_form=form)
            for form in ("onehot", "hist", "chunked")}
     e_ref = float(res["onehot"][2][0])
-    # f64 formulations agree to summation-order level; f32 (accelerator
-    # mode) to a few energy ULP (measured 7.5e-9 on-chip)
+    # f64 formulations agree to summation-order level; f32 (GPU mode) to
+    # a few energy ULP
     e_tol = 1e-9 if jax.config.jax_enable_x64 else 1e-6
     for form, (icrf_f, e0, e1, _) in res.items():
         assert np.isfinite(icrf_f).all()

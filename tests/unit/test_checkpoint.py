@@ -2,8 +2,8 @@
 import jax.numpy as jnp
 import numpy as np
 
-from camera_linearity_tpu.models import calibration as cal
-from camera_linearity_tpu.utils.checkpoint import DECheckpoint, load_pytree, \
+from camera_linearity.models import calibration as cal
+from camera_linearity.utils.checkpoint import DECheckpoint, load_pytree, \
     save_pytree
 
 

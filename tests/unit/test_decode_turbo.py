@@ -12,10 +12,10 @@ import pytest
 
 cv = pytest.importorskip("cv2")
 
-from camera_linearity_tpu import native
-from camera_linearity_tpu.config import CameraConfig
-from camera_linearity_tpu.models import video as video_mod
-from camera_linearity_tpu.utils import avi
+from camera_linearity import native
+from camera_linearity.config import CameraConfig
+from camera_linearity.models import video as video_mod
+from camera_linearity.utils import avi
 
 
 @pytest.fixture(scope="module")
@@ -182,7 +182,7 @@ class TestPipelineIntegration:
         import logging
         # the package logger is non-propagating (own stderr handler), so
         # attach caplog's capture handler to it directly
-        log = logging.getLogger("camera_linearity_tpu")
+        log = logging.getLogger("camera_linearity")
         log.addHandler(caplog.handler)
         try:
             dec = video_mod._resolve_decoder("turbo", [p], 48, 64)

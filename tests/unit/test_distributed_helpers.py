@@ -1,6 +1,6 @@
 """Unit tests for parallel.distributed's helpers in single-process mode.
 
-The real 2-process flow (jax.distributed wiring, Gloo collectives, DCN
+The real 2-process flow (jax.distributed wiring, Gloo collectives, cross-process
 scene sharding) is validated end to end by
 tests/integration/test_distributed.py; these cover the helper logic —
 mesh shape, block assignment, the global-batch round trip — on the
@@ -11,7 +11,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from camera_linearity_tpu.parallel import distributed as dist
+from camera_linearity.parallel import distributed as dist
 
 pytestmark = pytest.mark.skipif(len(jax.devices()) < 8,
                                 reason="needs 8 virtual devices")

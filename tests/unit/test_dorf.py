@@ -2,8 +2,8 @@
 import numpy as np
 import pytest
 
-from camera_linearity_tpu import CameraConfig
-from camera_linearity_tpu.models import dorf
+from camera_linearity import CameraConfig
+from camera_linearity.models import dorf
 
 
 def _write_dorf(tmp_path, curves_named, datapoints=32):

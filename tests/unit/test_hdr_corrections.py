@@ -6,9 +6,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from camera_linearity_tpu import CameraConfig, Measurand
-from camera_linearity_tpu.models.exposure_series import ExposureSeries
-from camera_linearity_tpu.models.image_set import ImageSet
+from camera_linearity import CameraConfig, Measurand
+from camera_linearity.models.exposure_series import ExposureSeries
+from camera_linearity.models.image_set import ImageSet
 
 
 @pytest.fixture
@@ -78,7 +78,7 @@ def test_hdr_with_flat_field_epilogue(corrected_setup):
                                       apply_flat_field=False)
     # flat-field correction divides by the flat and rescales by its ROI
     # mean: oracle from ops.filters on the uncorrected merge
-    from camera_linearity_tpu.ops import filters
+    from camera_linearity.ops import filters
     expect_val, expect_std = filters.flat_field_correction(
         base.measurand.val, base.measurand.std, flat.measurand.val,
         flat.measurand.std, cfg.flat_field_mid_percentage)
@@ -108,7 +108,7 @@ def test_hdr_flat_field_applies_to_value_only_merge(corrected_setup):
                                       list_of_dark_fields=[],
                                       use_std=False,
                                       apply_flat_field=False)
-    from camera_linearity_tpu.ops import filters
+    from camera_linearity.ops import filters
     expect_val, expect_std = filters.flat_field_correction(
         base.measurand.val, None, flat.measurand.val,
         flat.measurand.std, cfg.flat_field_mid_percentage)
@@ -120,7 +120,7 @@ def test_hdr_flat_field_applies_to_value_only_merge(corrected_setup):
 def test_flat_field_correction_without_flat_std(corrected_setup, rng):
     """Missing flat-field uncertainty drops the two flat terms but keeps
     the acquisition term."""
-    from camera_linearity_tpu.ops import filters
+    from camera_linearity.ops import filters
     cfg, _, _, flat, _, _ = corrected_setup
     val = jnp.asarray(rng.uniform(0.2, 0.8, (100, 120, 3)))
     std = jnp.asarray(rng.uniform(0.001, 0.01, (100, 120, 3)))
@@ -148,7 +148,7 @@ def test_measurand_shims(rng):
 def test_merge_corrected_fused_matches_sequential(corrected_setup, rng):
     """merge_corrected (ONE jit: bad-pixel -> merge -> flat) equals the
     sequential ops chain (BASELINE config 3)."""
-    from camera_linearity_tpu.ops import filters, hdr
+    from camera_linearity.ops import filters, hdr
     cfg, sets, darks, flat, icrf, stack = corrected_setup
     n = len(sets)
     stack_val = jnp.stack([s.measurand.val for s in sets])
@@ -185,7 +185,7 @@ def test_merge_corrected_fused_matches_sequential(corrected_setup, rng):
 
 def test_merge_corrected_12bit(rng):
     """The fused corrections path on a 12-bit stack (4096-entry tables)."""
-    from camera_linearity_tpu.ops import hdr
+    from camera_linearity.ops import hdr
     n, h, w, c = 3, 24, 40, 3
     bits = 4096
     dn = rng.integers(0, bits, (n, h, w, c))

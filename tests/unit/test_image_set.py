@@ -10,9 +10,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from camera_linearity_tpu import CameraConfig, Measurand
-from camera_linearity_tpu.models.image_set import ImageSet
-from camera_linearity_tpu.utils import io
+from camera_linearity import CameraConfig, Measurand
+from camera_linearity.models.image_set import ImageSet
+from camera_linearity.utils import io
 
 
 # ---------------------------------------------------------------------------

@@ -9,7 +9,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from camera_linearity_tpu.ops import linearity as lin
+from camera_linearity.ops import linearity as lin
 
 
 def oracle_analyze_linearity(stack, std_stack, lower, upper, use_relative,

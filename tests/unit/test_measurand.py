@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 from hypothesis import given, settings, strategies as st
 
-from camera_linearity_tpu import Measurand
+from camera_linearity import Measurand
 
 # ---------------------------------------------------------------------------
 # Strategies: broadcastable array pairs (reference test_measurand.py:26-60)

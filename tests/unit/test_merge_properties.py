@@ -4,9 +4,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from camera_linearity_tpu import CameraConfig, Measurand
-from camera_linearity_tpu.ops import hdr
-from camera_linearity_tpu.models.image_set import ImageSet
+from camera_linearity import CameraConfig, Measurand
+from camera_linearity.ops import hdr
+from camera_linearity.models.image_set import ImageSet
 
 
 @pytest.fixture
@@ -62,7 +62,7 @@ def test_merge_identity_icrf_constant_radiance(rng):
 
 
 def test_calibrate_flats(rng, tmp_path):
-    from camera_linearity_tpu.models.image_set import calibrate_flats
+    from camera_linearity.models.image_set import calibrate_flats
     cfg = CameraConfig()
     darks = tmp_path / "darks"
     raw_flats = tmp_path / "raw_flats"
@@ -87,7 +87,7 @@ def test_calibrate_flats(rng, tmp_path):
 
 def test_process_directory_pooled(tmp_path, rng):
     import cv2 as cv
-    from camera_linearity_tpu.models import video
+    from camera_linearity.models import video
     frames = rng.integers(60, 200, (10, 16, 24, 3), dtype=np.uint8)
     for name in ("a 5ms.avi", "b 5ms.avi"):
         w = cv.VideoWriter(str(tmp_path / name),

@@ -2,7 +2,7 @@
 import numpy as np
 import pytest
 
-from camera_linearity_tpu import native
+from camera_linearity import native
 
 
 def test_native_builds_and_loads():

@@ -11,8 +11,8 @@ import threading
 import numpy as np
 import pytest
 
-from camera_linearity_tpu.utils import observability as obs
-from camera_linearity_tpu.utils.general import set_thread_priority
+from camera_linearity.utils import observability as obs
+from camera_linearity.utils.general import set_thread_priority
 
 
 def test_stage_recorder_accumulates_across_threads():
@@ -71,7 +71,7 @@ def test_set_thread_priority_applies_to_calling_thread_only():
 
 
 def test_prewarm_batch_video_to_hdr_smoke():
-    from camera_linearity_tpu.models import pipeline
+    from camera_linearity.models import pipeline
 
     icrf = np.linspace(0, 1, 256)[:, None].repeat(3, 1) ** 2.2
     out = pipeline.prewarm_batch_video_to_hdr(1, 2, 16, 32, icrf)

@@ -4,9 +4,9 @@ import numpy as np
 from hypothesis import given, settings, strategies as st
 from scipy.ndimage import median_filter as scipy_median
 
-from camera_linearity_tpu.ops import filters
-from camera_linearity_tpu.utils import general
-from camera_linearity_tpu.config import CameraConfig
+from camera_linearity.ops import filters
+from camera_linearity.utils import general
+from camera_linearity.config import CameraConfig
 
 
 def test_median_filter_matches_scipy(rng):
@@ -149,7 +149,7 @@ ICRFs = ICRF_blue.txt,ICRF_green.txt,ICRF_red.txt
 
 
 def test_stage_to_device_chunked_equals_direct(rng):
-    from camera_linearity_tpu.utils import general
+    from camera_linearity.utils import general
     arr = rng.uniform(0, 1, (10, 37, 5)).astype(np.float32)
     direct = np.asarray(jnp.asarray(arr))
     chunked = np.asarray(general.stage_to_device(arr, max_bytes=4096))

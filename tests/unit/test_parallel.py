@@ -1,7 +1,7 @@
-"""Multi-chip sharding tests on the 8-device virtual CPU mesh.
+"""Multi-device sharding tests on the 8-device virtual CPU mesh.
 
 The reference has no distributed code (SURVEY.md §2); these validate the
-TPU-native scaling paths: sharded merge parity, explicit-psum statistics
+scaling paths: sharded merge parity, explicit-psum statistics
 parity, and population-sharded calibration.
 """
 import jax
@@ -9,10 +9,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from camera_linearity_tpu.ops import hdr as hdr_ops
-from camera_linearity_tpu.ops import stats as stats_ops
-from camera_linearity_tpu.parallel import mesh as mesh_mod
-from camera_linearity_tpu.parallel import sharded
+from camera_linearity.ops import hdr as hdr_ops
+from camera_linearity.ops import stats as stats_ops
+from camera_linearity.parallel import mesh as mesh_mod
+from camera_linearity.parallel import sharded
 
 pytestmark = pytest.mark.skipif(len(jax.devices()) < 8,
                                 reason="needs 8 virtual devices")
@@ -90,8 +90,8 @@ def test_sharded_stats_unweighted(rng, mesh):
 
 
 def test_population_sharded_calibration(rng):
-    from camera_linearity_tpu import CameraConfig
-    from camera_linearity_tpu.models import calibration as cal
+    from camera_linearity import CameraConfig
+    from camera_linearity.models import calibration as cal
     mesh = mesh_mod.make_mesh((8,), ("data",))
 
     gamma = 2.2
@@ -122,7 +122,7 @@ def test_population_sharded_calibration(rng):
 def test_merge_batch_matches_per_scene(rng):
     """ops.hdr.merge_batch (the batched fast path) == per-scene merges."""
     import jax.numpy as jnp
-    from camera_linearity_tpu.ops import hdr
+    from camera_linearity.ops import hdr
     b, n, h, w, c = 3, 4, 16, 24, 3
     val = jnp.asarray(rng.uniform(0.05, 0.95, (b, n, h, w, c)),
                       jnp.float32)
@@ -147,60 +147,6 @@ def test_merge_batch_matches_per_scene(rng):
                                rtol=5e-5, atol=1e-6)
 
 
-def test_merge_batch_sharded_with_base_curves(rng, mesh):
-    """Base-curve plumbing through the sharded merge: on non-TPU backends
-    the full tables drive the jnp path (the curves are advisory), so the
-    result must equal the plain sharded merge."""
-    b, n, h, w, c = 2, 3, 16, 24, 3
-    batch_val = rng.uniform(0.05, 0.95, (b, n, h, w, c))
-    batch_std = rng.uniform(0.001, 0.01, (b, n, h, w, c))
-    exposures = np.array([0.001, 0.002, 0.004])
-    base = np.sort(rng.uniform(0, 1, (256, c)), axis=0)
-    base[0], base[-1] = 0.0, 1.0
-    diff_base = np.gradient(base, 2 / 255, axis=0)
-    bits = 4096
-    x, xb = np.arange(bits) / (bits - 1), np.arange(256) / 255.0
-    icrf = np.stack([np.interp(x, xb, base[:, ch]) for ch in range(c)], 1)
-    icrf_diff = np.stack(
-        [np.interp(x, xb, diff_base[:, ch]) for ch in range(c)], 1)
-
-    bv = mesh_mod.shard_batch_of_scenes(jnp.asarray(batch_val), mesh)
-    bs = mesh_mod.shard_batch_of_scenes(jnp.asarray(batch_std), mesh)
-    args = (bv, bs, jnp.asarray(exposures), jnp.asarray(icrf),
-            jnp.asarray(icrf_diff), mesh)
-    out_val, out_std = sharded.merge_batch_sharded(
-        *args, icrf_base=jnp.asarray(base),
-        icrf_diff_base=jnp.asarray(diff_base))
-    ref_val, ref_std = sharded.merge_batch_sharded(*args)
-    np.testing.assert_allclose(np.asarray(out_val), np.asarray(ref_val),
-                               rtol=1e-12)
-    np.testing.assert_allclose(np.asarray(out_std), np.asarray(ref_std),
-                               rtol=1e-12)
-
-    vo, _ = sharded.merge_batch_sharded(
-        bv, None, jnp.asarray(exposures), jnp.asarray(icrf),
-        jnp.asarray(icrf_diff), mesh, icrf_base=jnp.asarray(base))
-    np.testing.assert_allclose(np.asarray(vo), np.asarray(ref_val),
-                               rtol=1e-12)
-
-
-def test_merge_batch_sharded_requires_diff_base(rng, mesh):
-    """icrf_base with uncertainties but no icrf_diff_base must fail with a
-    clear error, not a None entering shard_map under a P() spec."""
-    from camera_linearity_tpu.parallel import sharded
-    bv = jnp.asarray(rng.uniform(0.1, 0.9, (2, 3, 8, 8, 3)), jnp.float32)
-    bs = jnp.asarray(rng.uniform(0.001, 0.01, (2, 3, 8, 8, 3)), jnp.float32)
-    ex = jnp.asarray([1.0, 2.0, 4.0], jnp.float32)
-    icrf = jnp.asarray(np.linspace(0, 1, 4096)[:, None].repeat(3, 1),
-                       jnp.float32)
-    diff = jnp.ones_like(icrf)
-    base = jnp.asarray(np.linspace(0, 1, 256)[:, None].repeat(3, 1),
-                       jnp.float32)
-    with pytest.raises(ValueError, match="icrf_diff_base"):
-        sharded.merge_batch_sharded(bv, bs, ex, icrf, diff, mesh,
-                                    icrf_base=base)
-
-
 def test_pair_stats_sharded_parity(rng, mesh):
     """pair_stats_sharded == the single-device pair statistics: the
     difference stays chip-local, only the reductions psum."""
@@ -219,7 +165,7 @@ def test_pair_stats_sharded_parity(rng, mesh):
                                                   args[2], args[3], ratio,
                                                   mesh)
 
-    from camera_linearity_tpu.ops.uncertainty import scale_difference
+    from camera_linearity.ops.uncertainty import scale_difference
     (av, astd), (rv, rstd) = scale_difference(
         jnp.asarray(short_v), jnp.asarray(short_s), jnp.asarray(long_v),
         jnp.asarray(long_s), ratio)

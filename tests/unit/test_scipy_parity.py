@@ -13,8 +13,8 @@ import warnings
 import numpy as np
 import jax.numpy as jnp
 
-from camera_linearity_tpu import CameraConfig
-from camera_linearity_tpu.models import calibration as cal
+from camera_linearity import CameraConfig
+from camera_linearity.models import calibration as cal
 
 
 def _build_problem(seed=7, n_exp=6, pixels=400, datapoints=256):

@@ -6,8 +6,8 @@ ICRF_calibration_exposure.py:288-402)."""
 import numpy as np
 import pytest
 
-from camera_linearity_tpu import CameraConfig
-from camera_linearity_tpu.models.scipy_strict import (
+from camera_linearity import CameraConfig
+from camera_linearity.models.scipy_strict import (
     StrictDESolver, calibration_hybrid, calibration_strict,
     reference_energy)
 
@@ -177,7 +177,7 @@ def test_calibration_hybrid_improves_on_device_seed():
     """The hybrid's strict phase starts AT the device optimum (the seed
     joins SciPy's initial population) and can only improve it under the
     reference's float64 objective."""
-    from camera_linearity_tpu.models.calibration import calibration
+    from camera_linearity.models.calibration import calibration
 
     stacks, exposures, mean_icrf, pca = _build_problem(pixels=200)
     cfg = CameraConfig(num_of_chs=3, datapoints=256, bit_depth=8)
@@ -238,7 +238,7 @@ def test_calibration_hybrid_stall_limit():
 def test_calibration_return_params_shape():
     """return_params appends the solved (C, num_params) vectors and they
     reproduce the returned base curve through icrf_from_params."""
-    from camera_linearity_tpu.models.calibration import calibration
+    from camera_linearity.models.calibration import calibration
 
     stacks, exposures, mean_icrf, pca = _build_problem(pixels=120)
     cfg = CameraConfig(num_of_chs=3, datapoints=256, bit_depth=8)

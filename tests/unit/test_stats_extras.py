@@ -4,8 +4,8 @@ import logging
 import jax.numpy as jnp
 import numpy as np
 
-from camera_linearity_tpu.ops import stats
-from camera_linearity_tpu.utils import observability
+from camera_linearity.ops import stats
+from camera_linearity.utils import observability
 
 
 def test_weighted_avg_and_std_oracle(rng):
@@ -67,7 +67,7 @@ def test_kde_chunked_matches_unchunked(rng):
     """The lax.scan-chunked KDE evaluation is exact: same result whether
     the data fits one chunk or streams over many (incl. a ragged tail)."""
     import jax.numpy as jnp
-    from camera_linearity_tpu.ops.stats import gaussian_kde
+    from camera_linearity.ops.stats import gaussian_kde
     val = rng.uniform(0, 1, 10_007).astype(np.float64)
     x_range = jnp.linspace(0.0, 1.0, 64)
     full = gaussian_kde(jnp.asarray(val), x_range)
@@ -78,10 +78,10 @@ def test_kde_chunked_matches_unchunked(rng):
 
 def test_kde_megapixel_scale(rng):
     """KDE streams: a megapixel input evaluates without materializing the
-    (points, samples) kernel matrix (VERDICT round-1 weak #5)."""
+    (points, samples) kernel matrix."""
     import jax.numpy as jnp
     from scipy.stats import gaussian_kde as scipy_kde
-    from camera_linearity_tpu.ops.stats import gaussian_kde
+    from camera_linearity.ops.stats import gaussian_kde
     val = rng.uniform(0, 1, 1 << 20).astype(np.float64)
     x_range = jnp.linspace(0.0, 1.0, 32)
     out = gaussian_kde(jnp.asarray(val), x_range)

@@ -5,9 +5,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from camera_linearity_tpu import CameraConfig
-from camera_linearity_tpu.models import video
-from camera_linearity_tpu.ops import welford as wf
+from camera_linearity import CameraConfig
+from camera_linearity.models import video
+from camera_linearity.ops import welford as wf
 
 
 def numpy_welford(frames):
@@ -179,7 +179,7 @@ def test_process_std_data(tmp_path, rng):
 
 def test_welford_default_returns_float(avi):
     """The default (quantize=False) returns float arrays — docstring,
-    signature and behavior agree (VERDICT round-1 weak #4)."""
+    signature and behavior agree."""
     path, decoded = avi
     out = video.welford_algorithm(path, use_std=True)
     assert out["mean"].dtype != np.uint8

@@ -3,10 +3,13 @@ from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
-from camera_linearity_tpu import CameraConfig, Measurand
-from camera_linearity_tpu.models.image_set import ImageSet
-from camera_linearity_tpu.utils import visualization as viz
+pytest.importorskip("matplotlib")  # plotting is an optional extra
+
+from camera_linearity import CameraConfig, Measurand  # noqa: E402
+from camera_linearity.models.image_set import ImageSet  # noqa: E402
+from camera_linearity.utils import visualization as viz  # noqa: E402
 
 CFG = CameraConfig()
 
